@@ -21,7 +21,7 @@ from dspnet_tpu.utils.checkpoint import CheckpointManagerWrapper, checkpoint_pre
 
 
 def parse_args(argv=None):
-    p = argparse.ArgumentParser(description="DSPNet demo (TPU).")
+    p = argparse.ArgumentParser(description="DSPNet demo.")
     p.add_argument("--network", default="resnet-50_multi")
     p.add_argument("--seg-fast", action="store_true",
                    help="model was trained with --seg-fast")

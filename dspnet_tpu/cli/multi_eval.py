@@ -26,7 +26,7 @@ from dspnet_tpu.utils.checkpoint import CheckpointManagerWrapper, checkpoint_pre
 
 
 def parse_args(argv=None):
-    p = argparse.ArgumentParser(description="Evaluate a DSPNet network (TPU).")
+    p = argparse.ArgumentParser(description="Evaluate a DSPNet network.")
     p.add_argument("--network", default="resnet-50_multi")
     p.add_argument("--seg-fast", action="store_true",
                    help="model was trained with --seg-fast")
@@ -103,7 +103,7 @@ def main(argv=None):
             native_available,
         )
 
-        assert native_available(), "build it first: make -C native"
+        assert native_available(), "the native loader does not build here (make -C native)"
         it = NativeMultiTaskIterator(index, args.batch_size, (H, W),
                                      enable_aug=False, shuffle=False,
                                      device_normalize=args.native_u8,

@@ -25,7 +25,7 @@ from dspnet_tpu.utils.checkpoint import CheckpointManagerWrapper, checkpoint_pre
 
 
 def parse_args(argv=None):
-    p = argparse.ArgumentParser(description="Train a DSPNet multitask network (TPU).")
+    p = argparse.ArgumentParser(description="Train a DSPNet multitask network.")
     p.add_argument("--network", default="resnet-50_multi")
     p.add_argument("--data-shape", default="3,512,1024")
     p.add_argument("--num-classes", type=int, default=8)
@@ -53,10 +53,11 @@ def parse_args(argv=None):
     p.add_argument("--synthetic-dir", default="/tmp/dspnet_synth")
     p.add_argument("--num-devices", type=int, default=0, help="0 = all")
     p.add_argument("--coordinator", default="",
-                   help="multi-process DP: coordinator host:port "
-                        "(jax.distributed). All processes run this CLI with "
-                        "the same flags plus their own --process-id; "
-                        "--batch-size is the GLOBAL batch")
+                   help="multi-process DP, one process per GPU of one host: "
+                        "coordinator host:port (jax.distributed). All "
+                        "processes run this CLI with the same flags plus "
+                        "their own --process-id, which is also the GPU the "
+                        "process opens; --batch-size is the GLOBAL batch")
     p.add_argument("--num-processes", type=int, default=1,
                    help="with --coordinator: total process count")
     p.add_argument("--process-id", type=int, default=0,
@@ -90,10 +91,6 @@ def parse_args(argv=None):
                         "crop/pad/mirror, VOC-style det-only training — "
                         "reference dataset/iterator.py DetIter)")
     p.add_argument("--loader-threads", type=int, default=8)
-    p.add_argument("--target-backend", default="auto",
-                   choices=["auto", "xla", "pallas"],
-                   help="bipartite-matching backend for target assignment "
-                        "(auto: Pallas fused matcher on TPU, XLA elsewhere)")
     p.add_argument("--predownscale", action="store_true",
                    help="with --loader device: host-resize raws to the train "
                         "resolution before H2D (fewer bytes on the wire; "
@@ -122,8 +119,7 @@ def parse_args(argv=None):
                         "partial chunk (<N microbatches) of gradient")
     p.add_argument("--remat", action="store_true",
                    help="per-unit rematerialization (jax.checkpoint) — trades "
-                        "FLOPs for HBM; faster when activations spill "
-                        "(e.g. 512x1024 batch>=4: 67 vs 85 ms/step)")
+                        "FLOPs for device memory")
     args = p.parse_args(argv)
     args.data_shape = parse_data_shape(args.data_shape)
     return args
@@ -136,7 +132,8 @@ def main(argv=None):
         # reference analog: the KVStore ctx list, train_multitask.py:235-246
         from dspnet_tpu.parallel.mesh import distributed_init
 
-        distributed_init(args.coordinator, args.num_processes, args.process_id)
+        distributed_init(args.coordinator, args.num_processes, args.process_id,
+                         local_device_id=args.process_id)
     log = setup_logging()
     H, W = args.data_shape
     bundle = create_model(args.network, (H, W), args.num_classes, remat=args.remat,
@@ -175,7 +172,7 @@ def main(argv=None):
     if args.loader == "native":
         from dspnet_tpu.data.native_loader import NativeMultiTaskIterator, native_available
 
-        assert native_available(), "build it first: make -C native"
+        assert native_available(), "the native loader does not build here (make -C native)"
         train_iter = NativeMultiTaskIterator(
             train_index, local_batch, (H, W), enable_aug=True,
             num_threads=args.loader_threads, shard=shard,
@@ -237,7 +234,6 @@ def main(argv=None):
         freeze_pattern=args.freeze or None,
         seg_normalize=args.seg_normalize,
         compute_dtype=args.compute_dtype,
-        target_backend=args.target_backend,
         spatial=spatial,
         grad_accum=args.grad_accum,
     )

@@ -34,7 +34,6 @@ from __future__ import annotations
 import math
 from typing import Optional, Tuple
 
-import cv2
 import numpy as np
 
 MEAN_PIXELS = (123.68, 116.779, 103.939)  # RGB (iterator.py:340)
@@ -85,6 +84,7 @@ def augment_example(
 
     Returns (img, label, seg) at ``data_shape`` resolution.
     """
+    import cv2
     H, W = data_shape
     hh, ww = img.shape[:2]
     if seg is not None:
@@ -138,6 +138,7 @@ def resize_example(
     data_shape: Tuple[int, int],
 ):
     """No-aug eval path (iterator.py:439-474): plain resize, small-box filter."""
+    import cv2
     H, W = data_shape
     hh, ww = img.shape[:2]
     if seg is not None:
@@ -173,6 +174,7 @@ def color_jitter(img_bgr: np.ndarray, jitter, rng: np.random.RandomState) -> np.
     ``img_bgr`` must be uint8 HxWx3; draws come from ``rng`` so the
     pipeline stays deterministic under the canonical seed 233.
     """
+    import cv2
     out = img_bgr
     p = jitter.get("random_hue_prob", 0.0)
     if p > 0 and rng.rand() < p:
@@ -204,13 +206,14 @@ def color_jitter(img_bgr: np.ndarray, jitter, rng: np.random.RandomState) -> np.
 
 def normalize_image(img_bgr: np.ndarray, mean_pixels=MEAN_PIXELS) -> np.ndarray:
     """BGR uint8 HxWx3 -> float32 RGB NHWC-ready, mean-subtracted
-    (iterator.py:570-571, kept in HWC instead of CHW — TPU layout)."""
+    (iterator.py:570-571, kept in HWC instead of CHW — the models are NHWC)."""
     rgb = img_bgr[:, :, ::-1].astype(np.float32)
     return rgb - np.asarray(mean_pixels, np.float32)
 
 
 def downsample_seg(seg: np.ndarray, lut: Optional[np.ndarray] = None) -> np.ndarray:
     """1/4-res nearest downsample + LUT (iterator.py:573-576)."""
+    import cv2
     hh, ww = seg.shape
     out = cv2.resize(seg, (ww // 4, hh // 4), interpolation=cv2.INTER_NEAREST)
     if lut is not None:
@@ -226,7 +229,7 @@ def warp_affine_batch_jax(images, matrices, out_hw, border_value, nearest=False)
 
     Same sampling semantics as cv2.warpAffine (dst(x) = src(M^-1 x), bilinear
     or nearest, constant border). Used to fuse augmentation into the input
-    pipeline on TPU instead of burning host CPU on cv2.
+    pipeline on the device instead of burning host CPU on cv2.
     """
     import jax
     import jax.numpy as jnp

@@ -1,4 +1,4 @@
-"""Multitask batch iterator — TPU-native replacement for MultiTaskRecordIter.
+"""Multitask batch iterator — replacement for MultiTaskRecordIter.
 
 The reference iterates an MXNet .rec file + .lst sidecar
 (dataset/iterator.py:301-603); record files are an MXNet artifact, so this
@@ -22,7 +22,6 @@ import dataclasses
 import os
 from typing import Iterator, List, Optional, Sequence, Tuple
 
-import cv2
 import numpy as np
 
 from dspnet_tpu.data import augment as aug
@@ -69,6 +68,7 @@ def load_sample_arrays(sample: Sample, with_seg: bool = True):
     """Decode a sample's image (BGR) and optional seg mask, path- or
     span-backed. ``with_seg=False`` skips the mask decode entirely (the
     det-only iterator never uses it)."""
+    import cv2
     if sample.image_span is not None:
         img = cv2.imdecode(read_span(sample.image_span), cv2.IMREAD_COLOR)
         assert img is not None, sample.image_span

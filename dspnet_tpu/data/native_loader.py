@@ -2,12 +2,13 @@
 
 Drop-in alternative to :class:`~dspnet_tpu.data.iterator.MultiTaskIterator`
 backed by a multithreaded C++ pipeline (JPEG/PNG decode + affine warp + box
-transform + mean-sub), the TPU-native counterpart of the reference's
+transform + mean-sub), the counterpart of the reference's
 `preprocess_threads=48` C++ record iterator (config/config.py:56). The
 shuffle order and augmentation parameter table stay on the Python side
 (numpy seed 233) so batches match the pure-Python iterator.
 
-Build: ``make -C native`` (libjpeg/libpng/pthread only).
+The library is built from source on first use (``make -C native``; needs
+g++, libjpeg and libpng) into ``native/`` of the checkout.
 """
 
 from __future__ import annotations
@@ -22,11 +23,35 @@ from dspnet_tpu.data import augment as aug
 from dspnet_tpu.data.cs_labels import seg_label_lut
 from dspnet_tpu.data.iterator import LABEL_WIDTH, MAX_OBJECTS, SampleIndex, shard_positions
 
-_LIB_PATH = os.path.join(os.path.dirname(__file__), "..", "..", "native", "libdspnet_data.so")
+_NATIVE_DIR = os.path.abspath(
+    os.path.join(os.path.dirname(__file__), "..", "..", "native"))
+_LIB_PATH = os.path.join(_NATIVE_DIR, "libdspnet_data.so")
+
+
+def build_native() -> str:
+    """Build (or bring up to date) the library with ``make -C native`` and
+    return its path. An exclusive lock on the Makefile serialises
+    concurrent builders (test workers, data-parallel processes). Raises
+    RuntimeError with make's output when the build fails."""
+    import fcntl
+    import subprocess
+
+    with open(os.path.join(_NATIVE_DIR, "Makefile")) as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            r = subprocess.run(["make", "-C", _NATIVE_DIR], capture_output=True,
+                               text=True)
+        except OSError as e:
+            raise RuntimeError(f"cannot run make: {e}") from e
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    if r.returncode != 0:
+        raise RuntimeError(f"make -C {_NATIVE_DIR} failed:\n{r.stdout}{r.stderr}")
+    return _LIB_PATH
 
 
 def _load_lib():
-    lib = ctypes.CDLL(os.path.abspath(_LIB_PATH))
+    lib = ctypes.CDLL(build_native())
     lib.dl_create.restype = ctypes.c_void_p
     lib.dl_create.argtypes = [
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -65,7 +90,12 @@ def _load_lib():
 
 
 def native_available() -> bool:
-    return os.path.exists(_LIB_PATH)
+    """Whether the library is built, or builds here."""
+    try:
+        build_native()
+    except RuntimeError:
+        return False
+    return True
 
 
 def _normalize_on_device(u8_batch: np.ndarray, mean_pixels) -> "jax.Array":

@@ -1,8 +1,8 @@
-"""Device prefetch: overlap host->device batch transfer with TPU compute.
+"""Device prefetch: overlap host->device batch transfer with device compute.
 
-The reference hides host latency behind MXNet's threaded C++ iterator; on
-TPU the equivalent is keeping N batches in flight with ``jax.device_put`` on
-a background thread, so the train step never waits on PCIe/tunnel transfer.
+The reference hides host latency behind MXNet's threaded C++ iterator;
+here the equivalent is keeping N batches in flight with ``jax.device_put``
+on a background thread, so the train step never waits on PCIe transfer.
 """
 
 from __future__ import annotations

@@ -7,7 +7,7 @@ prepare_dataset.py:137-140) and reads it back through
 format is IO efficiency: one sequential file instead of hundreds of
 thousands of small files, with an `.idx` sidecar for O(1) random access.
 
-This module is the TPU-native counterpart. A ``.drec`` store keeps each
+This module is the counterpart here. A ``.drec`` store keeps each
 sample's *original encoded bytes* (JPEG image, PNG seg mask — no
 recompression, so decoded pixels are bit-identical to the file-backed path)
 plus the padded label matrix and the original path string (for the

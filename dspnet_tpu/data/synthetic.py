@@ -12,7 +12,6 @@ from __future__ import annotations
 import os
 from typing import Tuple
 
-import cv2
 import numpy as np
 
 from dspnet_tpu.data.cs_labels import DET_CLASSES, name2label, trainId2label
@@ -47,6 +46,7 @@ def make_example(
     fully overpainted by later geometry); det-class coverage follows the
     sampled boxes, and all 19 classes appear across a handful of images.
     """
+    import cv2
     H, W = hw
     img = np.zeros((H, W, 3), np.uint8)
     seg = np.full((H, W), 255, np.uint8)
@@ -138,6 +138,7 @@ def build_dataset(
     ``with_instances`` also writes gtFine-style ``*_instanceIds.png``
     (labelId*1000 + instance index per box, draw order = occlusion order)
     under SegmentationInstance/, for the instance-level evaluator."""
+    import cv2
     rng = np.random.RandomState(seed)
     os.makedirs(os.path.join(root, "JPEGImages"), exist_ok=True)
     os.makedirs(os.path.join(root, "SegmentationClass"), exist_ok=True)
@@ -199,6 +200,7 @@ def build_voc_dataset(
     the objects per split are marked ``<difficult>1</difficult>`` so the
     use_difficult metric paths are exercised.
     """
+    import cv2
     H, W = hw
     base = os.path.join(root, f"VOC{year}")
     os.makedirs(os.path.join(base, "JPEGImages"), exist_ok=True)

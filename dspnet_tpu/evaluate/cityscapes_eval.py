@@ -48,7 +48,7 @@ def add_to_confusion_matrix_jax(prediction, groundtruth, conf):
     """On-device variant (jnp) for streaming eval without host roundtrips.
 
     NOTE the accumulator dtype is the caller's ``conf``: int32 wraps past
-    2^31 after ~3.5k full-res Cityscapes images on one cell (TPU jnp has no
+    2^31 after ~3.5k full-res Cityscapes images on one cell (jnp has no
     int64 by default) — for long streams, pull per-batch counts to the host
     and accumulate into an int64 numpy matrix (the per-batch count itself
     cannot overflow: < 2^31 pixels/batch), or use a float32 accumulator

@@ -252,7 +252,7 @@ class IoUMetric(EvalMetric):
         matrix covering every id either side can take (ids >= conf's extent
         must not occur). Per class idx: inter = conf[idx, idx], total =
         row + col - diag — identical integers to the per-pixel masks, so
-        this is bit-identical to update() on the same pixels (the TPU eval
+        this is bit-identical to update() on the same pixels (the device eval
         loop accumulates conf on device and feeds it here once)."""
         conf = np.asarray(conf, np.int64)
         assert conf.shape[0] == conf.shape[1] and conf.shape[0] >= self.num

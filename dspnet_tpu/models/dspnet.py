@@ -21,7 +21,7 @@ from __future__ import annotations
 
 from typing import Any, Dict
 
-from flax import linen as nn
+from dspnet_tpu.models import nn
 
 from dspnet_tpu.models.factory import NetConfig
 from dspnet_tpu.models.heads import MultiBoxHead, MultiLayerFeature

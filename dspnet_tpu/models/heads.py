@@ -23,7 +23,7 @@ from __future__ import annotations
 from typing import Sequence
 
 import jax.numpy as jnp
-from flax import linen as nn
+from dspnet_tpu.models import nn
 
 from dspnet_tpu.models.layers import ConvAct, L2Normalize, conv
 

@@ -10,7 +10,7 @@ BN fix_gamma on every conv). The SSD factory taps
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import linen as nn
+from dspnet_tpu.models import nn
 
 from dspnet_tpu.models.layers import BatchNorm, avg_pool, max_pool
 

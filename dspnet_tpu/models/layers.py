@@ -1,7 +1,6 @@
 """Shared NHWC building blocks.
 
-TPU-first notes: everything is NHWC (XLA's preferred conv layout on TPU),
-BatchNorm matches MXNet conventions (momentum 0.9 moving-average update,
+Notes: everything is NHWC, BatchNorm matches MXNet conventions (momentum 0.9 moving-average update,
 ``fix_gamma`` -> no learned scale), and the reference's
 GridGenerator+BilinearSampler resampling (identity affine grid) is replaced
 by an explicit align-corners bilinear resize — the exact math of
@@ -16,7 +15,7 @@ from typing import Callable, Sequence
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import linen as nn
+from dspnet_tpu.models import nn
 
 BN_EPS = 2e-5
 BN_MOMENTUM = 0.9
@@ -26,9 +25,8 @@ class _BatchNormImpl(nn.Module):
     """Bandwidth-lean BatchNorm core (see BatchNorm below for the contract).
 
     flax's nn.BatchNorm promotes the whole activation to float32 for the
-    normalize in mixed precision — at 512x1024 that convert + the layout
-    copies it forces were ~30% of the canonical train step (profiled on
-    v5e). Here statistics are still accumulated in f32 (the converts fuse
+    normalize in mixed precision, which materializes an f32 copy of every
+    activation and the layout copies it forces. Here statistics are still accumulated in f32 (the converts fuse
     into the reductions, nothing f32-sized is materialized) and the
     normalize is folded to a per-channel affine y = x*A + B computed in f32
     on (C,)-vectors, applied in the activation dtype — one fused
@@ -55,8 +53,7 @@ class _BatchNormImpl(nn.Module):
         # batch-statistics reduction. BN stats are permutation-invariant,
         # so this is mathematically free — but it lets XLA keep the stats
         # reduce fused over the contiguous layout instead of re-deriving it
-        # through the transpose (profiled: a 1.1 ms unfused stats pass at
-        # b8 512x1024 otherwise, docs/ROOFLINE.md r5).
+        # through the transpose.
         c = x.shape[-1] // self.fold
         ra_mean = self.variable(
             "batch_stats", "mean", lambda: jnp.zeros((c,), jnp.float32))
@@ -194,9 +191,7 @@ def _bn_boundary_cotangent_port(z, k4):
        inclusion-exclusion.
 
     The backward thus reads only boundary strips of g (a few MB) instead of
-    batch-summing the full cotangent and running a dgrad conv — profiled
-    1.07 ms of the 41.6 ms b8 512x1024 step (fusion.208 + fusion.243,
-    docs/ROOFLINE.md r5). The returned z-cotangent is the constant field
+    batch-summing the full cotangent and running a dgrad conv. The returned z-cotangent is the constant field
     ``beta_c / (B*Ho*Wo)`` — correct for every consumer that only uses
     (b, h, w)-sums of it (the sum_batch_cotangent contract, which resnet's
     stem satisfies: fix_gamma bn_data over the non-differentiated image).
@@ -221,8 +216,8 @@ def _bn_port_bwd(res, g):
     # row / 2 left cols / 1 right col; corner blocks restore the
     # inclusion-exclusion overlaps. Slice in g's dtype FIRST, convert the
     # small strips to f32 after — converting g up front makes XLA
-    # materialize a full f32 copy of the cotangent (profiled 1.6 ms at
-    # b8 512x1024) just to feed these few-MB reads.
+    # materialize a full f32 copy of the cotangent just to feed these
+    # few-MB reads.
     def _f32(strip):
         return strip.astype(jnp.float32)
 
@@ -285,10 +280,9 @@ def space_to_depth(x):
     """[B, H, W, C] -> [B, H/2, W/2, 4C], channel order (dy, dx, c) with c
     minor — the layout SpaceToDepthConv(pre_s2d=True) consumes. Kept as a
     free function so the stem can hoist the one unavoidable relayout copy
-    to the RAW input (before bn_data) instead of paying three copies:
-    profiled on v5e at 512x1024 b8, bn-then-s2d cost 1.77 ms of layout
-    copies (bn output relayout + 6-D transpose + batch-minor conv-input
-    copy); s2d-then-bn leaves a single transpose (docs/ROOFLINE.md r5)."""
+    to the RAW input (before bn_data) instead of paying three copies
+    (bn output relayout + 6-D transpose + conv-input copy); s2d-then-bn
+    leaves a single transpose."""
     b, h, w, c = x.shape
     return x.reshape(b, h // 2, 2, w // 2, 2, c).transpose(
         0, 1, 3, 2, 4, 5).reshape(b, h // 2, w // 2, 4 * c)
@@ -301,10 +295,9 @@ class SpaceToDepthConv(nn.Module):
     Mathematically identical to the plain conv (a reindexing: output pixel
     (y,x) reads input u=2y+ky-3 which decomposes as u=2i+di, so each kernel
     row ky maps to a unique (i-offset, parity) pair), but far friendlier to
-    the MXU/backward pass: the image's 3 channels become 12, spatial extent
-    halves, and the notoriously slow kernel-gradient conv over the raw-
-    resolution image (~8 ms of the canonical 512x1024 b4 train step on v5e)
-    tiles properly. The parameter stays ``kernel (7,7,C,F)`` — checkpoint
+    the backward pass: the image's 3 channels become 12, spatial extent
+    halves, and the kernel-gradient conv over the raw-resolution image
+    tiles better. Whether it wins on the GPU is open (ROADMAP S3/D3). The parameter stays ``kernel (7,7,C,F)`` — checkpoint
     layout is unchanged; the transform is re-derived from it every step
     (param-sized, negligible).
     """
@@ -323,9 +316,8 @@ class SpaceToDepthConv(nn.Module):
         BatchNorm of the (non-differentiated) input image and the only
         upstream param is bn_data's beta (grad = sum over b,h,w of the
         cotangent). Why: XLA's full dgrad conv here has 12 output channels
-        (109/128 lanes padded) and ran at ~5% MXU efficiency, 2.8 ms of the
-        b8 512x1024 train step — only to be batch+space-summed into a
-        3-channel beta grad. Only set this under a trainable graph that
+        and runs at a small fraction of the matrix units' rate — only to be
+        batch+space-summed into a 3-channel beta grad. Only set this under a trainable graph that
         satisfies the batch-sum condition.
 
         ``pre_s2d=True``: the caller already applied :func:`space_to_depth`
@@ -426,15 +418,7 @@ class L2Normalize(nn.Module):
 def max_pool(x, kernel, stride, pad=(0, 0)):
     """MXNet 'valid'-convention max pool (floor output size).
 
-    The backward stays XLA's reduce_window VJP (select_and_scatter). Two
-    replacements for that op — the biggest single HLO in the train-step
-    roofline — were built, benched on v5e, and DELETED as losers
-    (docs/ROOFLINE.md "maxpool backward" section, 2026-08-19): a pure-XLA
-    first-match rewrite (43 ms vs 6.9 fwd+bwd: every strided slice or
-    interior pad pays a relayout pass) and a Pallas parity-plane kernel
-    (3.8 ms vs ~2.5 for the bwd alone at the stem b8 shape: VPU-bound on
-    half-empty 64-channel lanes, Mosaic forbids every strided vector
-    access so 30+ elementwise passes remain).
+    The backward stays XLA's reduce_window VJP (select_and_scatter).
     """
     if isinstance(kernel, int):
         kernel = (kernel, kernel)
@@ -518,9 +502,8 @@ def resize_bilinear_align_corners(x, target_hw: Sequence[int]):
     coordinate ``x_src = (x_norm + 1) * (W_src - 1) / 2`` with the normalized
     grid hitting +-1 exactly at corner pixel centers.
 
-    TPU-first formulation: the interpolation is separable, so it runs as two
-    small dense matmuls (out = Wy @ x @ Wx^T) on the MXU instead of gather
-    chains — gathers materialize four full-size intermediates of the widest
+    The interpolation is separable, so it runs as two small dense matmuls
+    (out = Wy @ x @ Wx^T) instead of gather chains — gathers materialize four full-size intermediates of the widest
     stream (2048 channels in the PSP head), which made this op as expensive
     as the whole backbone.
     """
@@ -534,7 +517,7 @@ def resize_bilinear_align_corners(x, target_hw: Sequence[int]):
         f"bilinear resize needs a floating dtype, got {x.dtype}")
     wy = jnp.asarray(_bilinear_axis_matrix(h, th), x.dtype)
     wx = jnp.asarray(_bilinear_axis_matrix(w, tw), x.dtype)
-    # f32 accumulation on the MXU keeps bf16 inputs exact enough (each row
+    # f32 accumulation keeps bf16 inputs exact enough (each row
     # has at most two nonzeros, so this is numerically a 2-term lerp)
     out = jnp.einsum("hs,bswc->bhwc", wy, x, preferred_element_type=jnp.float32)
     out = jnp.einsum("wt,bhtc->bhwc", wx, out, preferred_element_type=jnp.float32)
@@ -561,11 +544,8 @@ class Deconv2x(nn.Module):
     importing MXNet-trained deconv kernels needs a spatial flip + in/out
     transpose (utils/mxnet_import._deconv_kernel).
 
-    A subpixel-phase reformulation (stride-1 conv producing the 4 phases +
-    depth-to-space) was A/B-benched on v5e 2026-08-18 and LOST embedded in
-    the model (train step 55.7 vs 54.2 ms; inference within noise), so
-    only this plain path exists — XLA already lowers the input-dilated
-    transposed conv well at the seg head's 19-channel shapes.
+    Only this plain path exists: XLA lowers the input-dilated transposed
+    conv directly at the seg head's 19-channel shapes.
     """
 
     features: int

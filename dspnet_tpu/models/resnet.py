@@ -19,7 +19,7 @@ from __future__ import annotations
 
 from typing import Sequence
 
-from flax import linen as nn
+from dspnet_tpu.models import nn
 
 from dspnet_tpu.models.layers import (
     BatchNorm,
@@ -83,7 +83,7 @@ class ResNet(nn.Module):
 
     ``remat=True`` rematerializes each residual unit in the backward pass
     (jax.checkpoint) — trades ~30% extra FLOPs for O(depth) less activation
-    memory, the TPU-native answer to MXNet's ``memonger`` mirror option
+    memory, the counterpart of MXNet's ``memonger`` mirror option
     (reference symbol/resnet.py:49-50,66-67).
     """
 
@@ -99,15 +99,13 @@ class ResNet(nn.Module):
         Unit = nn.remat(ResidualUnit, static_argnums=(2,)) if self.remat else ResidualUnit
 
         # 7x7/2 stem as a space-to-depth 4x4/1 conv (same math + param
-        # layout, much faster backward on TPU) — see layers.SpaceToDepthConv.
+        # layout, a better-tiled backward) — see layers.SpaceToDepthConv.
         # sum_batch_cotangent: the only param upstream of conv0 is bn_data's
         # beta (fix_gamma, image input), whose grad is a batch-sum — so the
-        # stem's input dgrad can run as ONE batch-1 conv (exact; ~2.8 ms of
-        # the b8 512x1024 step otherwise).
+        # stem's input dgrad can run as ONE batch-1 conv (exact).
         # s2d BEFORE bn_data (stats folded back per original channel —
         # identical math, see _BatchNormImpl.fold): hoisting the relayout to
-        # the raw input collapses three stem layout copies into one
-        # (docs/ROOFLINE.md r5; 1.77 ms -> one transpose at b8 512x1024).
+        # the raw input collapses three stem layout copies into one.
         if x.shape[-1] == 12:
             # pre-space-to-depth input: the loader already delivered
             # space_to_depth(image) ([B, H/2, W/2, 12], (dy, dx, c) channel

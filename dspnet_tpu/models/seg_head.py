@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
+from dspnet_tpu.models import nn
 
 
 from dspnet_tpu.models.layers import (
@@ -36,8 +36,8 @@ class _ConcatConv3x3(nn.Module):
     """3x3 conv over a channel-concatenation of multi-resolution streams,
     computed as the sum of per-slice convs — same parameter layout (one
     (3,3,sum(C_i),features) kernel at <name>/kernel, like nn.Conv over the
-    concat), and the (B, H/8, W/8, 3320) concat tensor never hits HBM:
-    ~2 ms/batch32 saved at 512x512 on v5e.
+    concat), and the (B, H/8, W/8, 3320) concat tensor is never
+    materialized in device memory.
 
     ``fast=False`` (default, reference-exact): every stream is bilinear-
     resized to ``grid_hw`` first, then convolved — conv distributes over
@@ -49,7 +49,7 @@ class _ConcatConv3x3(nn.Module):
     resolution and the ``features``-channel partial result is resized to
     ``grid_hw`` before summing — FCN-style score-then-upsample. The top
     (2048-channel, H/32) stream dominates the concat, so this cuts the
-    score-conv MXU work ~9x at resnet-50/512. Different numerics from the
+    score-conv FLOPs ~9x at resnet-50/512. Different numerics from the
     reference (conv and resize don't commute); train and eval with the same
     setting. Parameter shapes are identical in both modes.
 
@@ -132,11 +132,10 @@ class _ConcatConv3x3(nn.Module):
                 # docstring). Streams sharing a resolution are contracted
                 # together and pay ONE resize + shifted-add pass (sum of
                 # convs == conv of concat). Grid-res streams too: their
-                # direct 3x3 conv was the head's only 19-output-lane MXU op
-                # (109/128 lanes padding waste, reference op
-                # multitask_symbol_builder.py:312-318); as a 1x1 tap
-                # contraction the outputs are 9f=171 lanes (67% useful) at
-                # ~4.5x less padded MXU work.
+                # direct 3x3 conv has only 19 output channels (reference
+                # op multitask_symbol_builder.py:312-318); as a 1x1 tap
+                # contraction the outputs are 9f=171 channels, a wider
+                # matrix product.
                 split_groups.setdefault(s.shape[1:3], []).append((s, k))
                 continue
             y = jax.lax.conv_general_dilated(
@@ -148,7 +147,7 @@ class _ConcatConv3x3(nn.Module):
                 y = resize_bilinear_align_corners(y, grid_hw)
             # sum the partial outputs in f32 so bf16 mode accumulates like
             # the single nn.Conv this replaces (per-conv accumulation is f32
-            # inside the MXU either way; preferred_element_type=f32 is not
+            # inside the conv either way; preferred_element_type=f32 is not
             # usable here — its VJP produces a mixed-dtype conv)
             y = y.astype(jnp.float32)
             out = y if out is None else out + y

@@ -8,7 +8,7 @@ dilated (6) 3x3 conv, fc7 a 1x1 conv. Taps used by the SSD factory:
 
 from __future__ import annotations
 
-from flax import linen as nn
+from dspnet_tpu.models import nn
 
 from dspnet_tpu.models.layers import conv, max_pool, max_pool_full
 

@@ -1,2 +1,2 @@
-"""Fixed-shape on-device detection ops (TPU-native equivalents of the
+"""Fixed-shape on-device detection ops (XLA equivalents of the
 reference's custom C++/CUDA MXNet operators, reference operator/*.cc|cu)."""

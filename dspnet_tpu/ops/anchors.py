@@ -1,4 +1,4 @@
-"""Anchor (prior box) generation — TPU-native MultiBoxPrior.
+"""Anchor (prior box) generation — MultiBoxPrior.
 
 Behavioral contract follows the reference CPU operator
 (/root/reference/operator/multibox_prior.cc:30-71 and
@@ -17,7 +17,7 @@ Behavioral contract follows the reference CPU operator
   ``offsets`` defaults to cell centers ``(0.5, 0.5)``.
 * ``clip`` clamps the result into [0, 1] (multibox_prior-inl.h:126-128).
 
-Anchors depend only on static configuration, never on data, so on TPU they
+Anchors depend only on static configuration, never on data, so here they
 are a trace-time constant: we build them with numpy at graph-construction
 time and embed them in the jitted program (zero runtime cost), instead of
 running a per-step CUDA kernel like the reference.

@@ -1,7 +1,7 @@
 """MultiBoxDetection — decode + class-aware NMS, fixed shape, on device.
 
-TPU redesign of the reference operator
-(/root/reference/operator/multibox_detection.cc:53-169, .cu:53-250).
+Redesign of the reference operator
+(reference operator/multibox_detection.cc:53-169, .cu:53-250).
 
 Reference pipeline (dynamic shapes, per-batch CUDA block):
   1. per anchor: argmax over foreground classes (first max wins), drop if
@@ -12,19 +12,17 @@ Reference pipeline (dynamic shapes, per-batch CUDA block):
      ``force_suppress``; suppressed rows get class id -1 (only column 0 is
      overwritten, score/box survive — multibox_detection.cc:164).
 
-TPU redesign (static shapes):
+Redesign (static shapes):
   1. vectorized argmax/decode over all anchors;
   2. one stable argsort by ``(valid desc, score desc, anchor idx asc)`` and a
      static top-K slice (K = nms_topk, padded rows are all -1 like the
      reference's -1-initialized output);
   3. greedy NMS computed as the unique fixpoint of
      ``keep = valid & ~(S^T @ keep)`` with S the upper-triangular suppression
-     matrix — each iteration is one K x K matmul on the MXU; the fixpoint
-     equals the sequential greedy result exactly (induction over row index),
-     and is reached in O(longest suppression chain) iterations. Two
-     backends: ``nms_backend='xla'`` (vmapped lax ops) and ``'pallas'``
-     (one fused VMEM-resident kernel per batch element,
-     ops/nms_pallas.py).
+     matrix — each iteration is one K x K 0/1 matvec (exact at any matmul
+     precision: 0/1 products summed in f32); the fixpoint equals the
+     sequential greedy result exactly (induction over row index), and is
+     reached in O(longest suppression chain) iterations.
 
 Known deviation (documented, not silently different): when more than
 ``nms_topk`` anchors pass the score threshold, the reference leaves the
@@ -132,7 +130,6 @@ def _nms_xla_single(k_valid, k_id, k_boxes, nms_threshold, force_suppress, topk)
         "nms_threshold",
         "force_suppress",
         "nms_topk",
-        "nms_backend",
     ),
 )
 def multibox_detection(
@@ -145,7 +142,6 @@ def multibox_detection(
     nms_threshold: float = 0.5,
     force_suppress: bool = False,
     nms_topk: int = 400,
-    nms_backend: str = "xla",
 ):
     """Batched MultiBoxDetection.
 
@@ -153,8 +149,6 @@ def multibox_detection(
       cls_prob:  (B, C, A) class probabilities (background = class 0).
       loc_preds: (B, A, 5) or (B, A*5) location regressions.
       anchors:   (A, 4) or (1, A, 4) corner anchors.
-      nms_backend: 'xla' (vmapped lax fixpoint) or 'pallas' (fused VMEM
-        kernel; TPU only).
 
     Returns:
       (B, K, 7) rows ``[class_id, score, xmin, ymin, xmax, ymax, dist]`` with
@@ -176,9 +170,9 @@ def multibox_detection(
         )
     nms_on = 0.0 < nms_threshold <= 1.0
     # NOTE nms_topk <= 0 means "no truncation" (reference semantics); with
-    # NMS on, the XLA backend then builds (A, A) IoU/suppression matrices
-    # per batch element (~600 MB f32 at A=12264) — fine for small A, an HBM
-    # hazard at full resolution. Keep the default K=400 for big anchor sets.
+    # NMS on, this builds (A, A) IoU/suppression matrices per batch element
+    # (~600 MB f32 at A=12264) — fine for small A, a device-memory hazard
+    # at full resolution. Keep the default K=400 for big anchor sets.
     topk = nms_topk if nms_topk > 0 else num_anchors
     topk = min(topk, num_anchors)
 
@@ -218,22 +212,16 @@ def multibox_detection(
         cls_prob.astype(jnp.float32), loc_preds.astype(jnp.float32)
     )
 
-    if nms_on:
-        if nms_backend == "pallas":
-            from dspnet_tpu.ops.nms_pallas import nms_keep_mask
-
-            keep = nms_keep_mask(k_boxes, k_id, k_valid, nms_threshold, force_suppress)
-        else:
-            keep = jax.vmap(
-                partial(
-                    _nms_xla_single,
-                    nms_threshold=nms_threshold,
-                    force_suppress=force_suppress,
-                    topk=topk,
-                )
-            )(k_valid, k_id, k_boxes)
-        # Reference overwrites only the class id of suppressed rows.
-        k_id = jnp.where(keep, k_id, -1.0)
+    keep = jax.vmap(
+        partial(
+            _nms_xla_single,
+            nms_threshold=nms_threshold,
+            force_suppress=force_suppress,
+            topk=topk,
+        )
+    )(k_valid, k_id, k_boxes)
+    # Reference overwrites only the class id of suppressed rows.
+    k_id = jnp.where(keep, k_id, -1.0)
 
     return jnp.concatenate(
         [k_id[..., None], k_score[..., None], k_boxes, k_dist[..., None]], axis=-1

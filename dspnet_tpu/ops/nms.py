@@ -6,7 +6,8 @@ CUDA bitmask-block) of Fast-R-CNN-style greedy NMS over
 ``[x1, y1, x2, y2, score]`` rows with the integer-pixel ``+1`` area
 convention. Here one numpy implementation covers the host path and one
 jit-able JAX implementation (same fixpoint formulation as
-ops/detection.py) covers the device path — a CUDA twin is pointless on TPU.
+ops/detection.py) covers the device path; a CUDA bitmask kernel comes back
+only if a profile of the card shows NMS costing (ROADMAP S5).
 """
 
 from __future__ import annotations

@@ -1,12 +1,12 @@
 """Mesh + sharding helpers.
 
-TPU-native replacement for the reference's parallelism story (SURVEY.md
-section 2.7): the reference's only strategy is data parallelism through
-MXNet KVStore on a GPU list (train/train_multitask.py:235-246); here DP is a
-1-D ``jax.sharding.Mesh`` over all chips, batches sharded on the ``data``
+Replacement for the reference's parallelism story (SURVEY.md section 2.7):
+the reference's only strategy is data parallelism through MXNet KVStore on a
+GPU list (train/train_multitask.py:235-246); here DP is a
+``jax.sharding.Mesh`` over all devices, batches sharded on the ``data``
 axis, parameters replicated, and gradient reduction left to XLA's SPMD
-partitioner (psum over ICI). A second ``model`` axis is plumbed through for
-future tensor/spatial sharding experiments.
+partitioner (an all-reduce over NVLink between GPUs). A second ``model``
+axis shards activations spatially (image width).
 """
 
 from __future__ import annotations
@@ -94,18 +94,23 @@ def shard_batch(mesh: Mesh, batch, spatial: bool = False):
 
 
 def distributed_init(coordinator: str, num_processes: int, process_id: int,
-                     local_device_count: Optional[int] = None):
-    """Multi-process runtime init (pod-scale DP) — must run before any other
-    JAX call. Replaces the reference's KVStore context list
+                     local_device_id: Optional[int] = None):
+    """Multi-process runtime init (one process per GPU) — must run before
+    any other JAX call. Replaces the reference's KVStore context list
     (train/train_multitask.py:235-246) with ``jax.distributed.initialize``:
     afterwards jax.devices() is the GLOBAL device list and make_mesh/
-    shard_batch span all hosts, XLA collectives riding ICI."""
+    shard_batch span all processes.
+
+    ``local_device_id``: the one GPU of this host the process opens. Each
+    JAX process reserves most of the memory of every GPU it opens, so
+    processes sharing a host must each open only their own card. (GPU
+    only; the CPU backend ignores it.)"""
     import jax.distributed
 
     jax.distributed.initialize(
         coordinator_address=coordinator,
         num_processes=num_processes,
         process_id=process_id,
-        local_device_ids=(list(range(local_device_count))
-                          if local_device_count else None),
+        local_device_ids=(None if local_device_id is None
+                          else [local_device_id]),
     )

@@ -1,9 +1,10 @@
 """visualize_net — inspect a network's structure and compiled form.
 
 The reference renders a graphviz plot of the MXNet symbol (reference
-tools/visualize_net.py:19-25). The TPU-native equivalents are (a) a flax
-``tabulate`` table of every module/param/shape, and (b) the lowered
-StableHLO of the jitted forward — what XLA actually compiles.
+tools/visualize_net.py:19-25). The equivalents here are (a) a table of the
+variable tree — values per module (two path levels), per collection —
+and (b) the lowered StableHLO of the jitted forward — what XLA actually
+compiles.
 
 Usage::
 
@@ -16,6 +17,31 @@ Usage::
 from __future__ import annotations
 
 import argparse
+from collections import defaultdict
+
+
+def summarize(variables, depth: int = 2) -> str:
+    """Table of ``variables`` ({collection: nested dict of arrays or shape
+    structs}): arrays and values per module path cut at ``depth``."""
+    import jax
+    import numpy as np
+
+    rows = defaultdict(lambda: [0, 0])
+    totals = defaultdict(int)
+    for col, tree in variables.items():
+        for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
+            keys = [str(getattr(k, "key", k)) for k in path]
+            row = rows[(col, "/".join(keys[:depth]))]
+            row[0] += 1
+            row[1] += int(np.prod(leaf.shape))
+            totals[col] += int(np.prod(leaf.shape))
+    width = max([len(m) for _, m in rows] + [6])
+    lines = [f"{'collection':<12} {'module':<{width}} {'arrays':>6} {'values':>12}"]
+    for (col, mod), (n, size) in sorted(rows.items()):
+        lines.append(f"{col:<12} {mod:<{width}} {n:>6} {size:>12,}")
+    for col, size in sorted(totals.items()):
+        lines.append(f"total {col}: {size:,}")
+    return "\n".join(lines)
 
 
 def main(argv=None):
@@ -38,15 +64,12 @@ def main(argv=None):
     model = bundle.model
     x = jnp.zeros((1, H, W, 3), jnp.float32)
 
-    import flax.linen as nn
-
-    print(nn.tabulate(model, jax.random.PRNGKey(0),
-                      depth=2, console_kwargs={"width": 120})(x, train=args.train))
+    variables = jax.eval_shape(lambda: model.init(jax.random.PRNGKey(0), x,
+                                                  train=args.train))
+    print(summarize(variables))
     print(f"task={bundle.task} anchors={bundle.num_anchors} input={H}x{W}")
 
     if args.hlo:
-        variables = jax.eval_shape(lambda: model.init(jax.random.PRNGKey(0), x,
-                                                      train=args.train))
         mutable = ["batch_stats"] if args.train else False
         lowered = jax.jit(
             lambda v, x: model.apply(v, x, train=args.train, mutable=mutable)

@@ -46,7 +46,7 @@ def cls_loss_valid(cls_logits, cls_target):
     logp = jax.nn.log_softmax(cls_logits, axis=-1)
     # one-hot contraction instead of take_along_axis: the iota+eq+select
     # fuses into the reduce, and the backward is an elementwise multiply
-    # instead of a scatter (TPU scatters serialize)
+    # instead of a scatter
     oh = jax.nn.one_hot(tgt, logp.shape[-1], dtype=logp.dtype)
     ce = -jnp.sum(logp * oh, axis=-1)
     ce = jnp.where(valid, ce, 0.0)
@@ -73,9 +73,9 @@ def seg_loss_and_accuracy(seg_logits, seg_labels, grad_scale: float = 4.0,
     jnp.argmax's first-occurrence rule: on an exact multi-lane tie that
     includes the label it counts correct where argmax may not — identical
     in the absence of ties, and a monitoring-only metric (eval accuracy
-    comes from the real argmax in the detector path). Why: XLA's variadic
-    (max, index) argmax lane reduce ran ~1.4 ms/step on v5e, and even a
-    min-iota-where reformulation paid ~1.0 ms for this metric alone.
+    comes from the real argmax in the detector path). Why: it saves XLA's
+    variadic (max, index) argmax reduce, a second pass over the logits,
+    for this monitoring metric alone.
     Per-pixel CE is bit-identical to -sum(log_softmax * one_hot):
     lse - shifted[t] rounds exactly like -(shifted[t] - lse)."""
     valid = seg_labels != SEG_IGNORE

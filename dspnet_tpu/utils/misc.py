@@ -2,11 +2,11 @@
 
 from __future__ import annotations
 
-import cv2
 
 
 def put_text(im, text, bbox, box_color=(0, 255, 0)):
     """Draw a labeled box with a filled text banner (reference utils.py:25-33)."""
+    import cv2
     cv2.rectangle(im, (int(bbox[0]), int(bbox[1])), (int(bbox[2]), int(bbox[3])),
                   color=box_color, thickness=1)
     font, scale, thick = cv2.FONT_HERSHEY_PLAIN, 0.6, 1

@@ -1,6 +1,6 @@
 """Mixed-precision helpers.
 
-TPU MXU prefers bfloat16; the inference path casts params + activations to
+Tensor cores run bfloat16 at twice the TF32 rate; the inference path casts params + activations to
 bf16 and decodes boxes in float32 (box decode / NMS stay exact).
 
 Training: ``MultiTaskSolver(compute_dtype='bfloat16')`` keeps float32 master

@@ -1,6 +1,6 @@
 """Tracing / profiling / throughput observability.
 
-Replaces the reference's monitoring hooks with the TPU-native equivalents
+Replaces the reference's monitoring hooks with JAX equivalents
 (SURVEY.md section 5):
 
 * per-op shape/stat monitor (``stat_helper`` executor callbacks,
@@ -38,8 +38,8 @@ def tensor_stats(tree, prefix: str = "", name_filter=None) -> Dict[str, str]:
     """Per-leaf shape/mean/std summary of a pytree (stat_helper equivalent).
 
     ``name_filter(name) -> bool`` is applied BEFORE fetching a leaf: each
-    np.asarray is a device->host round trip (serial and expensive over a
-    remote-TPU tunnel), so non-matching leaves must never be pulled."""
+    np.asarray is a serial device->host round trip, so non-matching leaves
+    must never be pulled."""
     import jax
 
     out = {}

@@ -1,11 +1,11 @@
 // dspnet_tpu native data loader.
 //
-// TPU-native counterpart of the reference's host-side input machinery: the
+// Counterpart of the reference's host-side input machinery: the
 // multithreaded C++ record iterator (mx.io.ImageDetRecordIter with
 // preprocess_threads=48, reference config/config.py:56) plus the python
 // cv2.warpAffine augmentation hot loop (dataset/iterator.py:476-603).
 //
-// Responsibilities (all on host CPU, overlapped with TPU compute through a
+// Responsibilities (all on host CPU, overlapped with device compute through a
 // bounded prefetch queue):
 //   * JPEG (libjpeg) / PNG (libpng) decode
 //   * one inverse-mapped affine warp per image: bilinear + constant border

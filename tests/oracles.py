@@ -2,8 +2,9 @@
 
 These are sequential, loop-level transcriptions of the *behavior* of the
 reference C++ CPU kernels (cited per function), used only as property-test
-oracles for the fixed-shape JAX/Pallas ops. They intentionally favor
-legibility over speed.
+oracles for the fixed-shape JAX ops (tests/ and chip_smoke.py). They favor
+legibility over speed; only the IoU table and the greedy scan's argmax are
+numpy-vectorized, so the oracles also run at full anchor counts.
 """
 
 from __future__ import annotations
@@ -52,6 +53,44 @@ def _iou(a, b):
     return inter / union
 
 
+def _iou_table(anchors, gts):
+    """(A, L) float64 IoU table, :func:`_iou` vectorized."""
+    a = np.asarray(anchors, np.float64)[:, None, :]
+    g = np.asarray(gts, np.float64)[None, :, :]
+    iw = np.maximum(0.0, np.minimum(a[..., 2], g[..., 2]) - np.maximum(a[..., 0], g[..., 0]))
+    ih = np.maximum(0.0, np.minimum(a[..., 3], g[..., 3]) - np.maximum(a[..., 1], g[..., 1]))
+    inter = iw * ih
+    union = ((a[..., 2] - a[..., 0]) * (a[..., 3] - a[..., 1])
+             + (g[..., 2] - g[..., 0]) * (g[..., 3] - g[..., 1]) - inter)
+    safe = np.where(union == 0.0, 1.0, union)
+    return np.where(union == 0.0, 0.0, inter / safe)
+
+
+def bipartite_match_oracle(overlaps, num_valid):
+    """Phase 1 of operator/multibox_target.cc:113-149: repeatedly match the
+    best (anchor, gt) pair among the unmatched ones while its IoU > 1e-6.
+
+    The C++ scan is row-major with a strict ``>``, so it keeps the FIRST
+    maximum in row-major order — which is what ``np.argmax`` over the
+    flattened table returns. Returns (match_gt (A,) int, -1 if unmatched;
+    match_iou (A,) float, -1 if unmatched).
+    """
+    A = overlaps.shape[0]
+    match_gt = np.full(A, -1)
+    match_iou = np.full(A, -1.0)
+    if num_valid == 0:
+        return match_gt, match_iou
+    ov = np.array(overlaps[:, :num_valid], np.float64)
+    for _ in range(num_valid):
+        j, k = divmod(int(np.argmax(ov)), num_valid)
+        if ov[j, k] <= 1e-6:
+            break
+        match_gt[j], match_iou[j] = k, ov[j, k]
+        ov[j, :] = -1.0  # anchor and gt are both consumed
+        ov[:, k] = -1.0
+    return match_gt, match_iou
+
+
 def multibox_target_oracle(
     anchors,
     labels,
@@ -61,11 +100,16 @@ def multibox_target_oracle(
     negative_mining_ratio=-1.0,
     negative_mining_thresh=0.5,
     variances=(0.1, 0.1, 0.2, 0.2),
+    overlaps=None,
 ):
     """Oracle for operator/multibox_target.cc:73-284.
 
     anchors (A, 4), labels (B, L, 6), cls_preds (B, C, A) ->
     loc_target (B, A, 5), loc_mask (B, A, 5), cls_target (B, A).
+
+    ``overlaps``: optional (B, A, L) anchor-GT IoU table to use instead of
+    the float64 one computed here — given the op's own float32 table, every
+    IoU threshold decision sees the values the op saw.
     """
     anchors = np.asarray(anchors, np.float64)
     labels = np.asarray(labels, np.float64)
@@ -86,35 +130,17 @@ def multibox_target_oracle(
         if num_valid == 0:
             continue
 
-        overlaps = np.zeros((A, L))
-        for j in range(A):
-            for k in range(num_valid):
-                overlaps[j, k] = _iou(anchors[j], labels[b, k, 1:5])
-
-        gt_flags = [False] * num_valid
-        match_iou = [-1.0] * A
-        match_gt = [-1] * A
-        anchor_flags = [-1] * A  # -1 ignore, 0 negative, 1 positive
-        num_positive = 0
+        if overlaps is None:
+            iou = _iou_table(anchors, labels[b, :num_valid, 1:5])
+        else:
+            iou = np.asarray(overlaps[b, :, :num_valid], np.float64)
 
         # phase 1: greedy bipartite (cc:113-149)
-        while not all(gt_flags):
-            best_anchor, best_gt, max_overlap = -1, -1, 1e-6
-            for j in range(A):
-                if anchor_flags[j] == 1:
-                    continue
-                for k in range(num_valid):
-                    if gt_flags[k]:
-                        continue
-                    if overlaps[j, k] > max_overlap:
-                        best_anchor, best_gt, max_overlap = j, k, overlaps[j, k]
-            if best_anchor == -1:
-                break
-            match_iou[best_anchor] = max_overlap
-            match_gt[best_anchor] = best_gt
-            num_positive += 1
-            gt_flags[best_gt] = True
-            anchor_flags[best_anchor] = 1
+        mg, mi = bipartite_match_oracle(iou, num_valid)
+        match_gt = [int(g) for g in mg]
+        match_iou = [float(v) for v in mi]
+        anchor_flags = [1 if g >= 0 else -1 for g in match_gt]  # -1 ignore, 0 negative, 1 positive
+        num_positive = sum(f == 1 for f in anchor_flags)
 
         # phase 2: threshold matching (cc:151-180)
         if overlap_threshold > 0:
@@ -123,14 +149,13 @@ def multibox_target_oracle(
                     continue
                 best_gt, max_iou = -1, -1.0
                 for k in range(num_valid):
-                    if overlaps[j, k] > max_iou:
-                        best_gt, max_iou = k, overlaps[j, k]
+                    if iou[j, k] > max_iou:
+                        best_gt, max_iou = k, iou[j, k]
                 if best_gt != -1:
                     match_iou[j] = max_iou
                     match_gt[j] = best_gt
                     if max_iou > overlap_threshold:
                         num_positive += 1
-                        gt_flags[best_gt] = True
                         anchor_flags[j] = 1
 
         # phase 3: negatives (cc:182-249)
@@ -145,8 +170,8 @@ def multibox_target_oracle(
                     if match_iou[j] < 0:
                         best_gt, max_iou = -1, -1.0
                         for k in range(num_valid):
-                            if overlaps[j, k] > max_iou:
-                                best_gt, max_iou = k, overlaps[j, k]
+                            if iou[j, k] > max_iou:
+                                best_gt, max_iou = k, iou[j, k]
                         if best_gt != -1:
                             match_iou[j] = max_iou
                             match_gt[j] = best_gt
@@ -244,13 +269,23 @@ def multibox_detection_oracle(
         nkeep = min(valid, nms_topk) if nms_topk > 0 else valid
         for i in range(nkeep):
             out[b, i] = temp[order[i]]
-        for i in range(valid):
-            if out[b, i, 0] < 0:
-                continue
-            for j in range(i + 1, valid):
-                if out[b, j, 0] < 0:
-                    continue
-                if force_suppress or out[b, i, 0] == out[b, j, 0]:
-                    if _iou(out[b, i, 2:6], out[b, j, 2:6]) >= nms_threshold:
-                        out[b, j, 0] = -1
+        greedy_nms_oracle(out[b], valid, nms_threshold, force_suppress)
     return out
+
+
+def greedy_nms_oracle(rows, n, nms_threshold, force_suppress=False):
+    """Greedy NMS over the first ``n`` rows ``[id, score, x1, y1, x2, y2,
+    ...]`` in their order (multibox_detection.cc:144-166): a kept row sets
+    the id of every later same-class (any class with ``force_suppress``)
+    row with IoU >= threshold to -1; rows with id < 0 take no part.
+    Modifies ``rows`` in place and returns it."""
+    for i in range(n):
+        if rows[i, 0] < 0:
+            continue
+        for j in range(i + 1, n):
+            if rows[j, 0] < 0:
+                continue
+            if force_suppress or rows[i, 0] == rows[j, 0]:
+                if _iou(rows[i, 2:6], rows[j, 2:6]) >= nms_threshold:
+                    rows[j, 0] = -1
+    return rows

@@ -216,14 +216,10 @@ def test_multihost_sharding_reproduces_global_epoch(tmp_path):
                 np.testing.assert_array_equal(b[key], ref[k * world + rank][key])
 
 
-def test_native_sharding_matches_python(tmp_path):
+def test_native_sharding_matches_python(native_lib, tmp_path):
     from dspnet_tpu.data.iterator import MultiTaskIterator
-    from dspnet_tpu.data.native_loader import NativeMultiTaskIterator, native_available
+    from dspnet_tpu.data.native_loader import NativeMultiTaskIterator
 
-    if not native_available():
-        import pytest
-
-        pytest.skip("native loader not built")
     index = synthetic.build_dataset(str(tmp_path), num_samples=6, hw=(64, 128))
     kw = dict(batch_size=1, data_shape=(64, 128), enable_aug=True, shuffle=True)
     py_it = MultiTaskIterator(index, shard=(1, 2), **kw)

@@ -56,7 +56,7 @@ def test_ssd_memorizes_and_scores_one_batch():
     GT classes must reach AP ~1.0. This exercises target assignment, the
     4-channel loss, decode/NMS, and the metric in one closed loop with a
     known answer; the full convergence trajectory (real images, the det
-    loader's crop/pad/mirror/jitter aug, VOC07 scoring) is the TPU run in
+    loader's crop/pad/mirror/jitter aug, VOC07 scoring) is the run in
     docs/VOC_CONVERGENCE.md."""
     from dspnet_tpu.detect.detector import Detector
     from dspnet_tpu.evaluate.eval_metric import MApMetric

@@ -118,7 +118,7 @@ def test_confusion_matrix_jax_matches():
 
 
 def test_update_from_confusion_bit_identical():
-    """The TPU eval loop feeds IoU/accuracy from an on-device confusion
+    """The device eval loop feeds IoU/accuracy from an on-device confusion
     matrix; the feeder must reproduce the per-pixel update() exactly —
     including ignore-255 labels and negative no-label fills (which the loop
     maps to the 255 bin)."""

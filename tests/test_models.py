@@ -258,14 +258,14 @@ def test_space_to_depth_sum_batch_cotangent_exact():
     fix_gamma bn_data over a non-differentiated image, then conv0 — every
     param grad (bn beta, conv kernel) must be EXACT vs the plain path, and
     the forward value identical, on even and odd input sizes."""
-    from flax import linen as fnn
+    from dspnet_tpu.models import nn
 
     from dspnet_tpu.models.layers import BatchNorm, SpaceToDepthConv
 
-    class Stem(fnn.Module):
+    class Stem(nn.Module):
         fast_grad: bool
 
-        @fnn.compact
+        @nn.compact
         def __call__(self, x):
             x = BatchNorm(fix_gamma=True, name="bn_data")(x, train=True)
             return SpaceToDepthConv(16, name="conv0")(
@@ -307,20 +307,20 @@ def test_stem_s2d_before_bn_matches_bn_first():
     checkpoint contract: bn per original channel, kernel (7,7,C,F)).
     BN commutes with s2d exactly (same pixel multiset per channel); only
     f32 reassociation differs."""
-    from flax import linen as fnn
+    from dspnet_tpu.models import nn
 
     from dspnet_tpu.models.layers import (
         BatchNorm, SpaceToDepthConv, space_to_depth)
 
-    class StemOld(fnn.Module):
-        @fnn.compact
+    class StemOld(nn.Module):
+        @nn.compact
         def __call__(self, x):
             x = BatchNorm(fix_gamma=True, name="bn_data")(x, train=True)
             return SpaceToDepthConv(16, name="conv0")(
                 x, sum_batch_cotangent=True)
 
-    class StemNew(fnn.Module):
-        @fnn.compact
+    class StemNew(nn.Module):
+        @nn.compact
         def __call__(self, x):
             x2 = space_to_depth(x)
             x2 = BatchNorm(fix_gamma=True, fold=4, name="bn_data")(
@@ -369,15 +369,15 @@ def test_bn_boundary_beta_grad_exact_in_stem_context():
     real stem context (bn_data -> conv0 -> bn0(train) -> relu -> loss) the
     param grads must match plain autodiff; the test also checks the
     identity premise directly."""
-    from flax import linen as fnn
+    from dspnet_tpu.models import nn
 
     from dspnet_tpu.models.layers import (
         BatchNorm, SpaceToDepthConv, space_to_depth)
 
-    class Stem(fnn.Module):
+    class Stem(nn.Module):
         mode: str  # "plain" | "batch_sum" | "boundary"
 
-        @fnn.compact
+        @nn.compact
         def __call__(self, x):
             x2 = space_to_depth(x)
             x2 = BatchNorm(fix_gamma=True, fold=4, name="bn_data")(
@@ -386,7 +386,7 @@ def test_bn_boundary_beta_grad_exact_in_stem_context():
                 x2, sum_batch_cotangent=self.mode != "plain", pre_s2d=True,
                 bn_boundary_beta=self.mode == "boundary")
             y = BatchNorm(name="bn0")(y, train=True)
-            return fnn.relu(y)
+            return nn.relu(y)
 
     rng = jax.random.PRNGKey(11)
     x = jax.random.normal(rng, (4, 24, 32, 3), jnp.float32) * 2 + 0.5

@@ -5,11 +5,12 @@ import pytest
 
 from dspnet_tpu.data import synthetic
 from dspnet_tpu.data.iterator import MultiTaskIterator
-from dspnet_tpu.data.native_loader import NativeMultiTaskIterator, native_available
+from dspnet_tpu.data.native_loader import NativeMultiTaskIterator
 
-pytestmark = pytest.mark.skipif(
-    not native_available(), reason="native loader not built (make -C native)"
-)
+
+@pytest.fixture(scope="module", autouse=True)
+def _built(native_lib):
+    """Every test here needs the library (built from source on first use)."""
 
 
 @pytest.fixture(scope="module")

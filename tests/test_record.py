@@ -14,7 +14,7 @@ import pytest
 from dspnet_tpu.data import record, synthetic
 from dspnet_tpu.data.imdb import load_imglist, load_index
 from dspnet_tpu.data.iterator import MultiTaskIterator, SampleIndex
-from dspnet_tpu.data.native_loader import NativeMultiTaskIterator, native_available
+from dspnet_tpu.data.native_loader import NativeMultiTaskIterator
 
 
 @pytest.fixture(scope="module")
@@ -98,9 +98,8 @@ def test_im2rec_cli(dataset, tmp_path):
     assert len(record.load_record_index(out)) == len(dataset)
 
 
-@pytest.mark.skipif(not native_available(), reason="native loader not built")
 @pytest.mark.parametrize("enable_aug", [False, True])
-def test_native_reads_records(dataset, packed, enable_aug):
+def test_native_reads_records(native_lib, dataset, packed, enable_aug):
     """C++ workers fseek into the .drec: parity with the file-backed native path."""
     rec_idx = record.load_record_index(packed)
     kw = dict(batch_size=2, data_shape=(64, 128), enable_aug=enable_aug, shuffle=True)

@@ -68,6 +68,8 @@ def test_visualize_net(tmp_path, capsys):
                         "--num-classes", "8", "--hlo", hlo])
     out = capsys.readouterr().out
     assert "backbone" in out and "task=multi" in out
+    # resnet-18 multi: the table's totals are the variable tree's sizes
+    assert "total params: " in out and "total batch_stats: " in out
     assert os.path.getsize(hlo) > 1000
     with open(hlo) as f:
         assert "stablehlo" in f.read()[:4000] or True  # lowered text exists
